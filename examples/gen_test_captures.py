@@ -13,10 +13,10 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from ieee80211_tpu.mac import MacConfig, aggregate_vht, build_udp_mpdu
-from ieee80211_tpu.specs import BW, F, Mod
-from ieee80211_tpu.tx import finalize, gen_ampdu, gen_mpdu
-from ieee80211_tpu.utils import save_complex_bin
+from ieee80211_phy.mac import MacConfig, aggregate_vht, build_udp_mpdu
+from ieee80211_phy.specs import BW, F, Mod
+from ieee80211_phy.tx import finalize, gen_ampdu, gen_mpdu
+from ieee80211_phy.utils import save_complex_bin
 
 CFG = MacConfig(addr1="f4:69:d5:80:0f:a0", addr2="00:c0:ca:b1:5b:e1",
                 addr3="f4:69:d5:80:0f:a0", seq=2704)
@@ -53,7 +53,7 @@ def main(outdir="tmp"):
     # a replay of the reference's captured beacon blob — seq/timestamp and
     # the element set intentionally differ from pktGenExample.py's
     # hard-coded hex string, and the frame carries a freshly computed FCS.
-    from ieee80211_tpu.mac import build_beacon
+    from ieee80211_phy.mac import build_beacon
     beacon = build_beacon("cloud_ac86u_5G", "24:4b:fe:61:25:ac",
                           "24:4b:fe:61:25:ac", seq=671, timestamp=23784950,
                           interval_tu=100, capability=0x1111, channel=100)

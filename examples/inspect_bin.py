@@ -8,9 +8,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from ieee80211_tpu.ops.sync import find_triggers_np
-from ieee80211_tpu.rx import SisoReceiver
-from ieee80211_tpu.utils import load_complex_bin
+from ieee80211_phy.ops.sync import find_triggers_np
+from ieee80211_phy.rx import SisoReceiver
+from ieee80211_phy.utils import load_complex_bin
 
 
 def main(path, fs_hz=20e6):
@@ -28,5 +28,7 @@ def main(path, fs_hz=20e6):
 
 
 if __name__ == "__main__":
+    from ieee80211_phy.utils.runtime import enable_compile_cache
+    enable_compile_cache()
     main(sys.argv[1] if len(sys.argv) > 1
          else "/root/reference/tools/sig80211GenMultipleSiso_1x1_0.bin")

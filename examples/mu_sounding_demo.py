@@ -12,10 +12,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from ieee80211_tpu.api import PhyService, descriptors as d
-from ieee80211_tpu.mac import MacConfig, aggregate_vht, build_udp_mpdu, parse_udp_mpdu
-from ieee80211_tpu.mu import map_q_to_grid, ndp_ltf_channel, vht_channel_feedback, zf_q
-from ieee80211_tpu.specs import BW, F, Mod
+from ieee80211_phy.api import PhyService, descriptors as d
+from ieee80211_phy.mac import MacConfig, aggregate_vht, build_udp_mpdu, parse_udp_mpdu
+from ieee80211_phy.mu import map_q_to_grid, ndp_ltf_channel, vht_channel_feedback, zf_q
+from ieee80211_phy.specs import BW, F, Mod
 
 CFG = MacConfig(subtype=8, addr1="f4:69:d5:80:0f:a0",
                 addr2="00:c0:ca:b1:5b:e1", addr3="f4:69:d5:80:0f:a0", seq=1)
@@ -62,4 +62,6 @@ def main():
 
 
 if __name__ == "__main__":
+    from ieee80211_phy.utils.runtime import enable_compile_cache
+    enable_compile_cache()
     main()

@@ -19,11 +19,11 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
-from ieee80211_tpu.mac import MacConfig, aggregate_vht, build_udp_mpdu
-from ieee80211_tpu.rx import SisoReceiver
-from ieee80211_tpu.rx.mimo import MimoReceiver
-from ieee80211_tpu.specs import BW, F, Mod
-from ieee80211_tpu.tx import finalize, gen_ampdu, gen_ampdu_mu, gen_mpdu
+from ieee80211_phy.mac import MacConfig, aggregate_vht, build_udp_mpdu
+from ieee80211_phy.rx import SisoReceiver
+from ieee80211_phy.rx.mimo import MimoReceiver
+from ieee80211_phy.specs import BW, F, Mod
+from ieee80211_phy.tx import finalize, gen_ampdu, gen_ampdu_mu, gen_mpdu
 
 CFG = MacConfig(subtype=8, addr1="f4:69:d5:80:0f:a0",
                 addr2="00:c0:ca:b1:5b:e1", addr3="f4:69:d5:80:0f:a0",
@@ -105,4 +105,6 @@ def main():
 
 
 if __name__ == "__main__":
+    from ieee80211_phy.utils.runtime import enable_compile_cache
+    enable_compile_cache()
     main()

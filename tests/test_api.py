@@ -3,11 +3,11 @@ in-process sounding loop through the PhyService."""
 import numpy as np
 import pytest
 
-from ieee80211_tpu.api import PhyService, descriptors as d
-from ieee80211_tpu.mac import MacConfig, aggregate_vht, build_udp_mpdu
-from ieee80211_tpu.mu import (map_q_to_grid, ndp_ltf_channel,
+from ieee80211_phy.api import PhyService, descriptors as d
+from ieee80211_phy.mac import MacConfig, aggregate_vht, build_udp_mpdu
+from ieee80211_phy.mu import (map_q_to_grid, ndp_ltf_channel,
                               vht_channel_feedback, zf_q)
-from ieee80211_tpu.specs import BW, F, GRF, Mod
+from ieee80211_phy.specs import BW, F, GRF, Mod
 
 from reference_oracle import get_oracle, quiet
 
@@ -106,7 +106,7 @@ def test_mu_multistream_user_request():
     (VERDICT r4 missing #2: the reference packs real per-user nSS,
     tools/phy80211.py:1200-1222; the golden TX already synthesizes
     multi-stream MU users)."""
-    from ieee80211_tpu.mu.sounding import sta_decode_mu
+    from ieee80211_phy.mu.sounding import sta_decode_mu
 
     m0 = build_udp_mpdu(b"two-stream user zero payload xx", CFG)
     m1 = build_udp_mpdu(b"one-stream user one payload yyy", CFG)

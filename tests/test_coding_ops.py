@@ -3,9 +3,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ieee80211_tpu.ops import coding
-from ieee80211_tpu.specs import CR
-from ieee80211_tpu.tx.golden import bcc, bcc_encode, puncture, scramble
+from ieee80211_phy.ops import coding
+from ieee80211_phy.specs import CR
+from ieee80211_phy.tx.golden import bcc, bcc_encode, puncture, scramble
 
 from reference_oracle import get_oracle, quiet
 
@@ -78,3 +78,21 @@ def test_depuncture_shapes():
     # pattern 110110 over 12 slots -> kept slots 0,1,2,5,6,7,8,11
     slots = coding.depuncture_slots(CR.CR34, 6)
     np.testing.assert_array_equal(slots, [0, 1, 2, 5, 6, 7, 8, 11])
+
+
+@pytest.mark.parametrize("n_bits", [120, 121, 122, 123])
+@pytest.mark.parametrize("cr", [CR.CR12, CR.CR23, CR.CR34, CR.CR56])
+def test_viterbi_xla_every_radix(cr, n_bits):
+    """The XLA reference decodes exactly at trellis lengths that are and
+    are not multiples of its radix-2^k step (XLA_RADIX)."""
+    rng = np.random.default_rng(n_bits)
+    bits = rng.integers(0, 2, (3, n_bits)).astype(np.int32)
+    bits[:, -6:] = 0
+    coded = np.stack([bcc(row, cr) for row in bits])
+    llr = jnp.asarray((coded * 2.0 - 1.0)
+                      + rng.normal(0, 0.2, coded.shape), jnp.float32)
+    lp = coding.depuncture(llr, cr, n_bits)
+    out = coding.viterbi_decode_xla(lp, n_bits)
+    assert out.shape == (3, n_bits)
+    np.testing.assert_array_equal(np.asarray(out), bits)
+

@@ -2,9 +2,9 @@
 runtime over the distributed coordinator and run collectives + the
 halo-exchange front-end on a global (dp x sp) mesh.
 
-TPU-native replacement for the reference's multi-host story (separate
-flowgraph processes over UDP/RF, SURVEY.md §2.5 DCN row; tools/cmu_v3/).
-On real pods the same entry (`parallel.distributed.init_distributed`) is
+Device-mesh replacement for the reference's multi-host story (separate
+flowgraph processes over UDP/RF, SURVEY.md §2.5 multi-host row; tools/cmu_v3/).
+On real clusters the same entry (`parallel.distributed.init_distributed`) is
 called once per host; here each "host" is a subprocess with 4 virtual CPU
 devices.
 """
@@ -33,7 +33,7 @@ def test_two_process_mesh_smoke():
         # runner's virtual-device XLA flag (it sets its own count of 4)
         env.pop("XLA_FLAGS", None)
         procs.append(subprocess.Popen(
-            [sys.executable, "-m", "ieee80211_tpu.parallel._smoke_worker"],
+            [sys.executable, "-m", "ieee80211_phy.parallel._smoke_worker"],
             cwd=REPO, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     outs = []
@@ -46,7 +46,7 @@ def test_two_process_mesh_smoke():
 
 
 def test_single_process_fallback():
-    from ieee80211_tpu.parallel import distributed as dist
+    from ieee80211_phy.parallel import distributed as dist
     for k in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
               "JAX_PROCESS_ID"):
         assert k not in os.environ

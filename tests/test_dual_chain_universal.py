@@ -11,12 +11,12 @@ chain 0 is in a deep fade, which the reference path cannot survive.
 import numpy as np
 import pytest
 
-from ieee80211_tpu.api.service import PhyService
-from ieee80211_tpu.api import descriptors as d
-from ieee80211_tpu.mac import MacConfig, aggregate_vht, build_udp_mpdu
-from ieee80211_tpu.rx.mimo import MimoReceiver
-from ieee80211_tpu.specs import BW, F, GRF, Mod
-from ieee80211_tpu.tx import finalize, gen_ampdu, gen_mpdu
+from ieee80211_phy.api.service import PhyService
+from ieee80211_phy.api import descriptors as d
+from ieee80211_phy.mac import MacConfig, aggregate_vht, build_udp_mpdu
+from ieee80211_phy.rx.mimo import MimoReceiver
+from ieee80211_phy.specs import BW, F, GRF, Mod
+from ieee80211_phy.tx import finalize, gen_ampdu, gen_mpdu
 
 MAC_CFG = MacConfig(ftype=2, subtype=0, to_ds=1, from_ds=0, retry=0,
                     protected=0, addr1="f4:69:d5:80:0f:a0",
@@ -171,7 +171,7 @@ def test_mimo_plan_batch_matches_plan_one():
 def test_stream_surfaces_ndps():
     """decode_captures_full emits NDP channel captures inline with the
     stream, for both the SISO and the dual-chain receiver."""
-    from ieee80211_tpu.rx import SisoReceiver
+    from ieee80211_phy.rx import SisoReceiver
     cap, want = _mixed_capture()
     caps2 = [cap, cap]
     stream, ndps = MimoReceiver().decode_captures_full(caps2)
@@ -180,8 +180,8 @@ def test_stream_surfaces_ndps():
         assert sum(1 for r in res if r.fcs_ok) == len(want)
         assert len(nd) == 1 and len(nd[0]) == 2   # one NDP, 2 chains
     # SISO stream: plant an NDP between data packets on one chain
-    from ieee80211_tpu.tx import finalize, gen_ampdu
-    from ieee80211_tpu.mac import aggregate_vht, build_udp_mpdu
+    from ieee80211_phy.tx import finalize, gen_ampdu
+    from ieee80211_phy.mac import aggregate_vht, build_udp_mpdu
     mpdu = build_udp_mpdu(b"data-around-the-ndp", MAC_CFG_QOS)
     w_d = finalize(gen_ampdu(aggregate_vht([mpdu]),
                              Mod(F.VHT, 5)).waveform,
@@ -198,7 +198,7 @@ def test_stream_surfaces_ndps():
 def test_dual_chain_ndp_feeds_2rx_feedback():
     """Both chains' NDP captures stack into a [nSD, nSTS, nRx=2] feedback
     matrix (beyond-reference: the reference STA is single-antenna)."""
-    from ieee80211_tpu.mu.feedback import ndp_ltf_channel, \
+    from ieee80211_phy.mu.feedback import ndp_ltf_channel, \
         vht_channel_feedback
     cap, _ = _mixed_capture()
     _, ndps = MimoReceiver().decode_capture_full(cap)

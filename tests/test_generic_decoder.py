@@ -8,16 +8,16 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ieee80211_tpu.mac import (MacConfig, aggregate_vht, build_udp_mpdu,
+from ieee80211_phy.mac import (MacConfig, aggregate_vht, build_udp_mpdu,
                                deaggregate_vht)
-from ieee80211_tpu.ops import sync
-from ieee80211_tpu.rx.generic import GenericSisoDecoder
-from ieee80211_tpu.specs import F, Mod
-from ieee80211_tpu.specs.crc import fcs_ok
-from ieee80211_tpu.specs.modulation import (ppdu_params_aggregate,
+from ieee80211_phy.ops import sync
+from ieee80211_phy.rx.generic import GenericSisoDecoder
+from ieee80211_phy.specs import F, Mod
+from ieee80211_phy.specs.crc import fcs_ok
+from ieee80211_phy.specs.modulation import (ppdu_params_aggregate,
                                             ppdu_params_nonaggregate)
-from ieee80211_tpu.tx import finalize, gen_ampdu, gen_mpdu
-from ieee80211_tpu.utils import c2r
+from ieee80211_phy.tx import finalize, gen_ampdu, gen_mpdu
+from ieee80211_phy.utils import c2r
 
 CFG = MacConfig(subtype=8, addr1="f4:69:d5:80:0f:a0",
                 addr2="00:c0:ca:b1:5b:e1", addr3="f4:69:d5:80:0f:a0",
@@ -45,7 +45,7 @@ def _build(fmt, mcs, payload):
 def test_generic_decodes_every_config():
     """All 25 configs, one program: FCS-exact MPDU recovery, plus parity
     of the raw decoded bits with the per-config SisoDataDecoder."""
-    from ieee80211_tpu.rx.receiver import SisoDataDecoder
+    from ieee80211_phy.rx.receiver import SisoDataDecoder
 
     rng = np.random.default_rng(5)
     n_sym_cap = 40

@@ -3,12 +3,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ieee80211_tpu.mac import MacConfig, aggregate_vht, build_udp_mpdu
-from ieee80211_tpu.specs import BW, F, Mod
-from ieee80211_tpu.specs.modulation import (ppdu_params_aggregate,
+from ieee80211_phy.mac import MacConfig, aggregate_vht, build_udp_mpdu
+from ieee80211_phy.specs import BW, F, Mod
+from ieee80211_phy.specs.modulation import (ppdu_params_aggregate,
                                             ppdu_params_nonaggregate)
-from ieee80211_tpu.tx import gen_ampdu, gen_mpdu
-from ieee80211_tpu.tx.jax_tx import TxPipeline
+from ieee80211_phy.tx import gen_ampdu, gen_mpdu
+from ieee80211_phy.tx.jax_tx import TxPipeline
 
 MAC_CFG = MacConfig(addr1="f4:69:d5:80:0f:a0", addr2="00:c0:ca:b1:5b:e1",
                     addr3="f4:69:d5:80:0f:a0", seq=2704)
@@ -52,9 +52,9 @@ def test_jax_tx_matches_golden_vht(mcs, nsts):
 def test_jax_tx_mu_matches_golden():
     """MU downlink: per-user MCS, runtime Q — sample-exact vs golden
     gen_ampdu_mu (which is itself sample-exact vs the reference PY-TB)."""
-    from ieee80211_tpu.tx.golden import gen_ampdu_mu
-    from ieee80211_tpu.tx.jax_tx import MuTxPipeline
-    from ieee80211_tpu.utils import c2r
+    from ieee80211_phy.tx.golden import gen_ampdu_mu
+    from ieee80211_phy.tx.jax_tx import MuTxPipeline
+    from ieee80211_phy.utils import c2r
     a0 = aggregate_vht([build_udp_mpdu(b"user zero payload 0123456789",
                                        MAC_CFG_QOS)])
     a1 = aggregate_vht([build_udp_mpdu(
@@ -78,12 +78,12 @@ def test_jax_tx_mu_decodes_at_stations():
     """Closed loop with the JAX MU TX in place of the golden one: NDP
     sounding -> ZF Q -> MuTxPipeline -> each STA recovers its own MPDU
     (in-memory cmu_v3, SURVEY.md §3.3)."""
-    from ieee80211_tpu.mu import (map_q_to_grid, ndp_ltf_channel,
+    from ieee80211_phy.mu import (map_q_to_grid, ndp_ltf_channel,
                                   vht_channel_feedback, zf_q)
-    from ieee80211_tpu.mu.sounding import sta_capture_ndp, sta_decode_mu
-    from ieee80211_tpu.tx import finalize, gen_ampdu
-    from ieee80211_tpu.tx.jax_tx import MuTxPipeline
-    from ieee80211_tpu.utils import c2r
+    from ieee80211_phy.mu.sounding import sta_capture_ndp, sta_decode_mu
+    from ieee80211_phy.tx import finalize, gen_ampdu
+    from ieee80211_phy.tx.jax_tx import MuTxPipeline
+    from ieee80211_phy.utils import c2r
 
     rng = np.random.default_rng(42)
     h = rng.standard_normal((2, 2)) + 1j * rng.standard_normal((2, 2))

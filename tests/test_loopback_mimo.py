@@ -6,10 +6,10 @@ stream deparser — through an identity and a random mixing channel.
 import numpy as np
 import pytest
 
-from ieee80211_tpu.mac import MacConfig, aggregate_vht, build_udp_mpdu
-from ieee80211_tpu.rx.mimo import MimoReceiver
-from ieee80211_tpu.specs import BW, F, Mod
-from ieee80211_tpu.tx import finalize, gen_ampdu, gen_mpdu
+from ieee80211_phy.mac import MacConfig, aggregate_vht, build_udp_mpdu
+from ieee80211_phy.rx.mimo import MimoReceiver
+from ieee80211_phy.specs import BW, F, Mod
+from ieee80211_phy.tx import finalize, gen_ampdu, gen_mpdu
 
 MAC_CFG = MacConfig(ftype=2, subtype=0, to_ds=1, from_ds=0, retry=0,
                     protected=0, addr1="f4:69:d5:80:0f:a0",

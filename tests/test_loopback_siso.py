@@ -7,10 +7,10 @@ trigger, sync, SIG parse, demod, Viterbi, descramble and FCS/A-MPDU checks.
 import numpy as np
 import pytest
 
-from ieee80211_tpu.mac import MacConfig, aggregate_vht, build_udp_mpdu
-from ieee80211_tpu.rx import SisoReceiver
-from ieee80211_tpu.specs import BW, F, Mod
-from ieee80211_tpu.tx import finalize, gen_ampdu, gen_mpdu
+from ieee80211_phy.mac import MacConfig, aggregate_vht, build_udp_mpdu
+from ieee80211_phy.rx import SisoReceiver
+from ieee80211_phy.specs import BW, F, Mod
+from ieee80211_phy.tx import finalize, gen_ampdu, gen_mpdu
 
 MAC_CFG = MacConfig(ftype=2, subtype=0, to_ds=1, from_ds=0, retry=0,
                     protected=0, addr1="f4:69:d5:80:0f:a0",
@@ -102,8 +102,8 @@ def test_stats_and_evm_snr():
 def test_ht_ampdu_loopback():
     """HT A-MPDU (multiple subframes) through the auto receiver — the path
     the reference leaves 'to be added' (lib/decode_impl.cc:432-435)."""
-    from ieee80211_tpu.mac import aggregate_ht
-    from ieee80211_tpu.tx import gen_ampdu
+    from ieee80211_phy.mac import aggregate_ht
+    from ieee80211_phy.tx import gen_ampdu
     frames = [build_udp_mpdu(bytes([i]) * (25 + i), MAC_CFG_QOS)
               for i in range(3)]
     ampdu = aggregate_ht(frames)

@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from ieee80211_tpu.mac import (MacConfig, aggregate_ht, aggregate_vht,
+from ieee80211_phy.mac import (MacConfig, aggregate_ht, aggregate_vht,
                                build_udp_mpdu, build_vht_ndp_announcement,
                                deaggregate_ht, deaggregate_vht, parse_mpdu,
                                parse_udp_mpdu)

@@ -8,13 +8,13 @@ golden TX -> JAX RX chain.
 """
 import struct
 
-from ieee80211_tpu.mac import (MacConfig, build_beacon, build_bf_report_poll,
+from ieee80211_phy.mac import (MacConfig, build_beacon, build_bf_report_poll,
                                build_element, build_udp_mpdu,
                                build_vht_ndp_announcement, parse_frame,
                                parse_mgmt_elements)
-from ieee80211_tpu.rx import SisoReceiver
-from ieee80211_tpu.specs import F, Mod
-from ieee80211_tpu.tx import finalize, gen_mpdu
+from ieee80211_phy.rx import SisoReceiver
+from ieee80211_phy.specs import F, Mod
+from ieee80211_phy.tx import finalize, gen_mpdu
 
 
 def test_frame_control_decode():
@@ -110,7 +110,7 @@ def test_beacon_waveform_roundtrip():
     """Synthesized L-MCS0 beacon through golden TX -> JAX RX -> parser
     (the reference's beacon example replays a fixed capture; we generate,
     decode and parse one from scratch)."""
-    beacon = build_beacon("cloud_tpu_5G", "24:4b:fe:61:25:ac",
+    beacon = build_beacon("cloud_phy_5G", "24:4b:fe:61:25:ac",
                           "24:4b:fe:61:25:ac", seq=7, timestamp=1234567,
                           capability=0x0411)
     tx = gen_mpdu(beacon, Mod(F.L, 0))
@@ -120,5 +120,5 @@ def test_beacon_waveform_roundtrip():
     assert len(res) == 1 and res[0].fcs_ok
     assert res[0].mpdus[0] == beacon
     p = parse_frame(res[0].mpdus[0])
-    assert p.fc.subtype_name == "Beacon" and p.ssid == "cloud_tpu_5G"
+    assert p.fc.subtype_name == "Beacon" and p.ssid == "cloud_phy_5G"
     assert p.timestamp == 1234567 and p.fcs_ok

@@ -7,11 +7,11 @@ reference GR-TRX RX envelope supports.
 import numpy as np
 import pytest
 
-from ieee80211_tpu.mac import MacConfig, aggregate_vht, build_udp_mpdu
-from ieee80211_tpu.rx import SisoReceiver
-from ieee80211_tpu.rx.mimo import MimoReceiver
-from ieee80211_tpu.specs import BW, F, Mod
-from ieee80211_tpu.tx import finalize, gen_ampdu, gen_mpdu
+from ieee80211_phy.mac import MacConfig, aggregate_vht, build_udp_mpdu
+from ieee80211_phy.rx import SisoReceiver
+from ieee80211_phy.rx.mimo import MimoReceiver
+from ieee80211_phy.specs import BW, F, Mod
+from ieee80211_phy.tx import finalize, gen_ampdu, gen_mpdu
 
 CFG = MacConfig(addr1="f4:69:d5:80:0f:a0", addr2="00:c0:ca:b1:5b:e1",
                 addr3="f4:69:d5:80:0f:a0", seq=2704)

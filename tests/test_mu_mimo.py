@@ -9,12 +9,12 @@ recover exactly its own MPDU.
 import numpy as np
 import pytest
 
-from ieee80211_tpu.mac import MacConfig, aggregate_vht, build_udp_mpdu
-from ieee80211_tpu.mu import (compress_v, map_q_to_grid, ndp_ltf_channel,
+from ieee80211_phy.mac import MacConfig, aggregate_vht, build_udp_mpdu
+from ieee80211_phy.mu import (compress_v, map_q_to_grid, ndp_ltf_channel,
                               recover_v, vht_channel_feedback, zf_q)
-from ieee80211_tpu.mu.sounding import sta_capture_ndp, sta_decode_mu
-from ieee80211_tpu.specs import BW, F, Mod
-from ieee80211_tpu.tx import finalize, gen_ampdu, gen_ampdu_mu
+from ieee80211_phy.mu.sounding import sta_capture_ndp, sta_decode_mu
+from ieee80211_phy.specs import BW, F, Mod
+from ieee80211_phy.tx import finalize, gen_ampdu, gen_ampdu_mu
 
 MAC_CFG_QOS = MacConfig(ftype=2, subtype=8, to_ds=1, from_ds=0, retry=0,
                         protected=0, addr1="f4:69:d5:80:0f:a0",
@@ -155,7 +155,7 @@ def test_compress_recover_roundtrip():
 
 def test_bf_report_roundtrip():
     """Compressed BF action frame: build -> parse -> V recovered."""
-    from ieee80211_tpu.mac.bf_report import (build_vht_compressed_bf_action,
+    from ieee80211_phy.mac.bf_report import (build_vht_compressed_bf_action,
                                              parse_vht_compressed_bf_action)
     rng = np.random.default_rng(9)
     h = rng.standard_normal((56, 1, 2)) + 1j * rng.standard_normal((56, 1, 2))
@@ -181,7 +181,7 @@ def test_ndp_report_via_unified_receiver():
     (decode_capture_full), like the reference RX chain emitting the
     type-20 blob (lib/decode_impl.cc:100-121) — no separate NDP entry
     point needed. The LTF windows must match sta_capture_ndp's."""
-    from ieee80211_tpu.rx import SisoReceiver
+    from ieee80211_phy.rx import SisoReceiver
 
     ndp = gen_ampdu(b"", Mod(F.VHT, 0, BW.BW20, 2))
     rng = np.random.default_rng(11)

@@ -4,8 +4,8 @@ import zlib
 import numpy as np
 import pytest
 
-from ieee80211_tpu import native
-from ieee80211_tpu.mac import (MacConfig, aggregate_ht, aggregate_vht,
+from ieee80211_phy import native
+from ieee80211_phy.mac import (MacConfig, aggregate_ht, aggregate_vht,
                                build_udp_mpdu, deaggregate_vht)
 
 CFG = MacConfig(subtype=8, addr1="f4:69:d5:80:0f:a0",
@@ -35,9 +35,9 @@ def test_pack_bits():
 
 def test_find_triggers_matches_python():
     """Native trigger scan finds the same packet starts on a real capture."""
-    from ieee80211_tpu.ops import sync
-    from ieee80211_tpu.specs import F, Mod
-    from ieee80211_tpu.tx import finalize, gen_mpdu
+    from ieee80211_phy.ops import sync
+    from ieee80211_phy.specs import F, Mod
+    from ieee80211_phy.tx import finalize, gen_mpdu
     mpdu = build_udp_mpdu(b"0123456789" * 3, CFG)
     w = gen_mpdu(mpdu, Mod(F.L, 0)).waveform
     cap = np.concatenate([

@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import pytest
 
 import __graft_entry__ as ge
-from ieee80211_tpu.ops import sync
-from ieee80211_tpu.parallel import make_phy_mesh, sharded_frontend
+from ieee80211_phy.ops import sync
+from ieee80211_phy.parallel import make_phy_mesh, sharded_frontend
 
 
 def test_entry_compiles_and_decodes():
@@ -27,7 +27,7 @@ def test_dryrun_multichip_2():
 def test_halo_frontend_matches_unsharded():
     """Time-sharded correlator with halo == single-device correlator."""
     rng = np.random.default_rng(0)
-    from ieee80211_tpu.utils import c2r
+    from ieee80211_phy.utils import c2r
     x = (rng.standard_normal((4, 2048)) + 1j * rng.standard_normal((4, 2048))
          ).astype(np.complex64)
     mesh = make_phy_mesh(8, sp=4)
@@ -40,7 +40,7 @@ def test_halo_frontend_matches_unsharded():
 
 def test_scaling_harness_smoke():
     """Sharded RX runs at 1/2/4 virtual devices and decodes correctly."""
-    from ieee80211_tpu.perf.scaling import measure_scaling
+    from ieee80211_phy.perf.scaling import measure_scaling
     rates = measure_scaling(device_counts=[1, 2], batch_per_device=8,
                             iters=1)
     assert set(rates) == {1, 2}

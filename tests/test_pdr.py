@@ -1,8 +1,8 @@
 """Smoke test of the PDR sweep harness: curves behave physically."""
 import numpy as np
 
-from ieee80211_tpu.perf import pdr_sweep
-from ieee80211_tpu.specs import F
+from ieee80211_phy.perf import pdr_sweep
+from ieee80211_phy.specs import F
 
 
 def test_pdr_curve_shape():

@@ -1,8 +1,8 @@
 """Acceptance-sweep harness smoke + committed-artifact threshold checks.
 
 The full reference-scale sweep (100 pkts x SNR 0-30 x 42 MCS configs,
-perf_siso.py:126-180 / perf_sumimo.py semantics) runs on TPU via
-`python -m ieee80211_tpu.perf.acceptance` and commits its artifact to
+perf_siso.py:126-180 / perf_sumimo.py semantics) runs on the device via
+`python -m ieee80211_phy.perf.acceptance` and commits its artifact to
 artifacts/pdr_acceptance.json. This file (a) smoke-tests the harness end
 to end at tiny scale on CPU, and (b) asserts receiver-quality thresholds
 on the committed artifact so a quality regression that re-runs the sweep
@@ -14,7 +14,7 @@ import os
 import numpy as np
 import pytest
 
-from ieee80211_tpu.perf.acceptance import _snr_at, run_acceptance
+from ieee80211_phy.perf.acceptance import _snr_at, run_acceptance
 
 ART = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "artifacts", "pdr_acceptance.json")
@@ -39,11 +39,11 @@ MIMO_EXTRA_DB = 5
 
 def test_harness_smoke_tiny():
     """One SISO + one MIMO config, 2 SNR points, 4 packets, on CPU."""
-    import ieee80211_tpu.perf.acceptance as acc
-    from ieee80211_tpu.perf.pdr import (MimoRxPipeline, _build_mimo_packet,
+    import ieee80211_phy.perf.acceptance as acc
+    from ieee80211_phy.perf.pdr import (MimoRxPipeline, _build_mimo_packet,
                                         _build_packet)
-    from ieee80211_tpu.models import RxPipeline
-    from ieee80211_tpu.specs import F
+    from ieee80211_phy.models import RxPipeline
+    from ieee80211_phy.specs import F
 
     siso = acc._sweep_curves(_build_packet, RxPipeline, [(F.VHT, 7)],
                              [10.0, 30.0], 4, 100, 0, lambda m: None)

@@ -9,9 +9,9 @@ import os
 
 import pytest
 
-from ieee80211_tpu.rx import SisoReceiver
-from ieee80211_tpu.specs import F
-from ieee80211_tpu.utils import load_complex_bin
+from ieee80211_phy.rx import SisoReceiver
+from ieee80211_phy.specs import F
+from ieee80211_phy.utils import load_complex_bin
 
 BIN = "/root/reference/tools/sig80211GenMultipleSiso_1x1_0.bin"
 
@@ -46,7 +46,7 @@ def test_decode_reference_mimo_bins():
     loopback."""
     import numpy as np
 
-    from ieee80211_tpu.rx.mimo import MimoReceiver
+    from ieee80211_phy.rx.mimo import MimoReceiver
 
     cap = np.stack([load_complex_bin(BIN_MIMO.format(c)) for c in range(2)])
     res = MimoReceiver().decode_capture(cap)

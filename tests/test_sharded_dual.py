@@ -9,17 +9,17 @@ flagging, and cross-shard trigger dedup.
 import numpy as np
 import pytest
 
-from ieee80211_tpu.mac import MacConfig, aggregate_vht, build_udp_mpdu, \
+from ieee80211_phy.mac import MacConfig, aggregate_vht, build_udp_mpdu, \
     deaggregate_vht
-from ieee80211_tpu.parallel import make_phy_mesh
-from ieee80211_tpu.parallel.sharded import sharded_capture_decode_auto2
-from ieee80211_tpu.rx.mimo import MrcDataDecoder
-from ieee80211_tpu.specs import BW, F, Mod
-from ieee80211_tpu.specs.crc import fcs_ok
-from ieee80211_tpu.specs.modulation import (ppdu_params_aggregate,
+from ieee80211_phy.parallel import make_phy_mesh
+from ieee80211_phy.parallel.sharded import sharded_capture_decode_auto2
+from ieee80211_phy.rx.mimo import MrcDataDecoder
+from ieee80211_phy.specs import BW, F, Mod
+from ieee80211_phy.specs.crc import fcs_ok
+from ieee80211_phy.specs.modulation import (ppdu_params_aggregate,
                                             ppdu_params_nonaggregate)
-from ieee80211_tpu.tx import finalize, gen_ampdu, gen_mpdu
-from ieee80211_tpu.utils import c2r
+from ieee80211_phy.tx import finalize, gen_ampdu, gen_mpdu
+from ieee80211_phy.utils import c2r
 
 CFG = MacConfig(addr1="f4:69:d5:80:0f:a0", addr2="00:c0:ca:b1:5b:e1",
                 addr3="f4:69:d5:80:0f:a0", seq=2704)
@@ -131,11 +131,11 @@ def test_sharded_auto2_mu_branch():
     from the in-graph SIG-B pass and the own-stream decode (masked P-row
     combining over a dynamic group layout) recovers the exact MPDU with
     the SIG-B CRC verified in-graph."""
-    from ieee80211_tpu.mac import aggregate_vht, deaggregate_vht
-    from ieee80211_tpu.parallel.sharded import sharded_capture_decode_auto2
-    from ieee80211_tpu.rx.mimo import MrcDataDecoder
-    from ieee80211_tpu.specs.modulation import ppdu_params_aggregate
-    from ieee80211_tpu.tx import gen_ampdu_mu
+    from ieee80211_phy.mac import aggregate_vht, deaggregate_vht
+    from ieee80211_phy.parallel.sharded import sharded_capture_decode_auto2
+    from ieee80211_phy.rx.mimo import MrcDataDecoder
+    from ieee80211_phy.specs.modulation import ppdu_params_aggregate
+    from ieee80211_phy.tx import gen_ampdu_mu
 
     sp, dp = 2, 2
     mesh = make_phy_mesh(4, sp=sp)
@@ -154,7 +154,7 @@ def test_sharded_auto2_mu_branch():
     rx_mu = np.stack([g[0] * mu_wave[0], g[1] * mu_wave[0]])
     mod_su = Mod(F.VHT, 7)
     pp_su = ppdu_params_aggregate(mod_su, len(aggregate_vht([mpdu_su])))
-    from ieee80211_tpu.tx import gen_ampdu
+    from ieee80211_phy.tx import gen_ampdu
     su_wave = finalize(gen_ampdu(aggregate_vht([mpdu_su]),
                                  mod_su).waveform, 0.2, 9000.0,
                       gap=False)[0]

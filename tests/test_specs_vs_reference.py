@@ -1,15 +1,15 @@
 """Validate the generated spec tables against the reference toolbox.
 
-Every table in ieee80211_tpu.specs is derived from the standard's formulas;
+Every table in ieee80211_phy.specs is derived from the standard's formulas;
 here we check numeric equality with the reference's literal tables
 (tools/phy80211header.py) per SURVEY.md §7 step 1.
 """
 import numpy as np
 import pytest
 
-from ieee80211_tpu.specs import BW, CR, F, M, Mod, tables
-from ieee80211_tpu.specs import interleaver as ilv
-from ieee80211_tpu.specs.modulation import (ppdu_params_aggregate,
+from ieee80211_phy.specs import BW, CR, F, M, Mod, tables
+from ieee80211_phy.specs import interleaver as ilv
+from ieee80211_phy.specs.modulation import (ppdu_params_aggregate,
                                             ppdu_params_nonaggregate)
 
 from reference_oracle import get_oracle, quiet

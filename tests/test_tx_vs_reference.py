@@ -6,9 +6,9 @@ transmitter's waveforms numerically for every supported format.
 import numpy as np
 import pytest
 
-from ieee80211_tpu.mac import MacConfig, aggregate_vht, build_udp_mpdu
-from ieee80211_tpu.specs import BW, F, Mod
-from ieee80211_tpu.tx import gen_ampdu, gen_ampdu_mu, gen_mpdu
+from ieee80211_phy.mac import MacConfig, aggregate_vht, build_udp_mpdu
+from ieee80211_phy.specs import BW, F, Mod
+from ieee80211_phy.tx import gen_ampdu, gen_ampdu_mu, gen_mpdu
 
 from reference_oracle import get_oracle, quiet
 

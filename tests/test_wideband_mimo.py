@@ -10,10 +10,10 @@ P-matrix MIMO channel estimate, ZF equalizer and stream deparser.
 import numpy as np
 import pytest
 
-from ieee80211_tpu.mac import MacConfig, aggregate_vht, build_udp_mpdu
-from ieee80211_tpu.rx.mimo import MimoReceiver
-from ieee80211_tpu.specs import BW, F, Mod
-from ieee80211_tpu.tx import finalize, gen_ampdu, gen_mpdu
+from ieee80211_phy.mac import MacConfig, aggregate_vht, build_udp_mpdu
+from ieee80211_phy.rx.mimo import MimoReceiver
+from ieee80211_phy.specs import BW, F, Mod
+from ieee80211_phy.tx import finalize, gen_ampdu, gen_mpdu
 
 CFG = MacConfig(addr1="f4:69:d5:80:0f:a0", addr2="00:c0:ca:b1:5b:e1",
                 addr3="f4:69:d5:80:0f:a0", seq=2704)
@@ -72,9 +72,9 @@ def test_ml_beats_zf_on_hard_channel():
     channel-robust, not just high-SNR."""
     import jax.numpy as jnp
 
-    from ieee80211_tpu.ops import sync
-    from ieee80211_tpu.rx.mimo import MimoDataDecoder
-    from ieee80211_tpu.specs.modulation import ppdu_params_nonaggregate
+    from ieee80211_phy.ops import sync
+    from ieee80211_phy.rx.mimo import MimoDataDecoder
+    from ieee80211_phy.specs.modulation import ppdu_params_nonaggregate
 
     q = 2
     mpdu = build_udp_mpdu(PAYLOAD * 4, CFG)

@@ -11,10 +11,10 @@ all preamble geometry scales with the oversample factor q.
 import numpy as np
 import pytest
 
-from ieee80211_tpu.mac import MacConfig, aggregate_vht, build_udp_mpdu
-from ieee80211_tpu.rx import SisoReceiver
-from ieee80211_tpu.specs import BW, F, Mod
-from ieee80211_tpu.tx import finalize, gen_ampdu, gen_mpdu
+from ieee80211_phy.mac import MacConfig, aggregate_vht, build_udp_mpdu
+from ieee80211_phy.rx import SisoReceiver
+from ieee80211_phy.specs import BW, F, Mod
+from ieee80211_phy.tx import finalize, gen_ampdu, gen_mpdu
 
 CFG = MacConfig(addr1="f4:69:d5:80:0f:a0", addr2="00:c0:ca:b1:5b:e1",
                 addr3="f4:69:d5:80:0f:a0", seq=7)
@@ -83,10 +83,10 @@ def test_multi_packet_wideband_capture():
 def test_wideband_rx_pipeline_jit():
     """The fixed-config jit RxPipeline (flagship graph) decodes 40/80 MHz."""
     import jax.numpy as jnp
-    from ieee80211_tpu.mac import deaggregate_vht
-    from ieee80211_tpu.models import RxPipeline
-    from ieee80211_tpu.specs.modulation import ppdu_params_aggregate
-    from ieee80211_tpu.utils import c2r
+    from ieee80211_phy.mac import deaggregate_vht
+    from ieee80211_phy.models import RxPipeline
+    from ieee80211_phy.specs.modulation import ppdu_params_aggregate
+    from ieee80211_phy.utils import c2r
     mpdu = build_udp_mpdu(PAYLOAD, CFG)
     for bw in (BW.BW40, BW.BW80):
         q = Q[bw]
@@ -118,8 +118,8 @@ def test_wideband_mimo_2x2_loopback(fmt, mcs, bw):
     """2x2 SU-MIMO at 40/80 MHz through a random mixing channel — also
     beyond the reference envelope (its MIMO RX is 20 MHz-only), including
     nES=2 configs the reference's stream parser never reaches."""
-    from ieee80211_tpu.rx.mimo import MimoReceiver
-    from ieee80211_tpu.tx import gen_mpdu
+    from ieee80211_phy.rx.mimo import MimoReceiver
+    from ieee80211_phy.tx import gen_mpdu
     mpdu = build_udp_mpdu(PAYLOAD, CFG)
     mod = Mod(fmt, mcs, bw, 2)
     q = Q[bw]

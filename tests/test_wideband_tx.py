@@ -8,9 +8,9 @@ consistency checks rather than reference comparisons.
 import numpy as np
 import pytest
 
-from ieee80211_tpu.mac import MacConfig, aggregate_vht, build_udp_mpdu
-from ieee80211_tpu.specs import BW, F, Mod, tables
-from ieee80211_tpu.tx import gen_ampdu, gen_mpdu
+from ieee80211_phy.mac import MacConfig, aggregate_vht, build_udp_mpdu
+from ieee80211_phy.specs import BW, F, Mod, tables
+from ieee80211_phy.tx import gen_ampdu, gen_mpdu
 
 CFG = MacConfig(addr1="f4:69:d5:80:0f:a0", addr2="00:c0:ca:b1:5b:e1",
                 addr3="f4:69:d5:80:0f:a0", seq=2704)
